@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Generic module launcher (parity: /root/reference/launch.py): run a
 module's `app`/`main()` if defined, else auto-discover and run embedded
-unittest cases — `python launch.py autognothi_tpu/utils/strings.py`."""
+unittest cases — `python launch.py autognothi/utils/strings.py`."""
 
 import importlib
 import pathlib

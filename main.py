@@ -7,7 +7,7 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 
-from autognothi_tpu.cli import main
+from autognothi.cli import main
 
 if __name__ == "__main__":
     main()

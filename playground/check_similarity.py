@@ -1,7 +1,7 @@
 """Self-audit: report repo files whose text is suspiciously similar to any
 same-named or similar-sized file in the (read-only) reference tree.
 
-This codebase is a ground-up TPU-native redesign, not a port; this script
+This codebase is a ground-up JAX redesign, not a port; this script
 keeps us honest about it.  Usage: python playground/check_similarity.py
 [threshold=0.45]
 """

@@ -1,5 +1,5 @@
 """Bulk-reformat/validate every experiment's `.hparams.json` against the
-pydantic schema (parity: /root/reference/playground/fmt_hparams.py).
+config records (parity: /root/reference/playground/fmt_hparams.py).
 
 Run: python playground/fmt_hparams.py
 """
@@ -16,15 +16,15 @@ EXPERIMENTS = pathlib.Path(__file__).parent.parent / "experiments"
 
 
 def main() -> None:
-    from autognothi_tpu.pipeline.config import ExpConfig
+    from autognothi.pipeline.config import ExpConfig
 
     for exp in sorted(EXPERIMENTS.iterdir()):
         hp = exp / ".hparams.json"
         if not hp.exists():
             continue
         raw = json.loads(hp.read_text())
-        cfg = ExpConfig.model_validate(raw)  # fail on schema violations
-        dumped = json.loads(cfg.model_dump_json(by_alias=True, exclude_unset=True))
+        cfg = ExpConfig.from_dict(raw)  # fail on schema violations
+        dumped = cfg.to_dict(exclude_unset=True)
         hp.write_text(json.dumps(dumped, indent=2) + "\n")
         print(f"ok: {hp}")
 

@@ -16,7 +16,7 @@ import time.  This driver makes it run hermetically:
 
 The resulting experiment dir is the input to the cross-framework migration
 E2E (tests/test_migration_e2e.py): the torch-trained stage checkpoints are
-imported into autognothi_tpu and the measure_all reports are diffed.
+imported into autognothi and the measure_all reports are diffed.
 
 Usage:
     python playground/reference_run.py [--exp DIR] [--perf-dims base|mini]
@@ -282,7 +282,7 @@ def build_shared_tokenizer(exp: pathlib.Path, corpus_texts) -> int:
     recipes/vanilla_bert.py:93; ours: recipes/vanilla_bert.py load_misc).
     Returns the vocab size."""
     sys.path.insert(0, str(REPO))
-    from autognothi_tpu.data.tokenizer import build_vocab
+    from autognothi.data.tokenizer import build_vocab
 
     from transformers import BertTokenizerFast
 
@@ -437,8 +437,8 @@ CV_SAMPLES_SPEC = dict(train_size=8, test_size=4, img_px_size=16,
 
 def shared_cv_loader():
     """The deterministic synthetic image set BOTH frameworks evaluate on
-    (ours: autognothi_tpu.data.loader.load_cv_samples, seeded)."""
-    from autognothi_tpu.data.loader import load_cv_samples
+    (ours: autognothi.data.loader.load_cv_samples, seeded)."""
+    from autognothi.data.loader import load_cv_samples
 
     return load_cv_samples(**CV_SAMPLES_SPEC)
 

@@ -16,7 +16,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
 OUT = (
     pathlib.Path(__file__).parent.parent
-    / "autognothi_tpu" / "data" / "yelp_polarity_mini.json"
+    / "autognothi" / "data" / "yelp_polarity_mini.json"
 )
 
 
@@ -24,20 +24,20 @@ def main(n_samples: int = 64) -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from autognothi_tpu.data.loader import load_yelp_polarity
-    from autognothi_tpu.data.tokenizer import encode_batch
-    from autognothi_tpu.models.bert import VanillaBertConfig, bert_classifier_fwd
-    from autognothi_tpu.zoo.loader import load_params
+    from autognothi.data.loader import load_yelp_polarity
+    from autognothi.data.tokenizer import encode_batch
+    from autognothi.models.bert import VanillaBertConfig, bert_classifier_fwd
+    from autognothi.zoo.loader import load_params
 
     params_np, tokenizer = load_params("ft_bert_base_yelp", num_labels=2)
     if params_np is None or tokenizer is None:
         raise SystemExit("ft_bert_base_yelp not found — run pretrain first")
     params = {k: jnp.asarray(v) for k, v in params_np.items()}
     with open(
-        pathlib.Path(__file__).parent.parent / "autognothi_tpu" / "zoo"
+        pathlib.Path(__file__).parent.parent / "autognothi" / "zoo"
         / "store" / "ft_bert_base_yelp" / "model.json"
     ) as f:
-        cfg = VanillaBertConfig.model_validate(json.load(f))
+        cfg = VanillaBertConfig.from_dict(json.load(f))
 
     loader = load_yelp_polarity(train_size=8, test_size=38000, test_seed=2333)
     kept = []

@@ -20,8 +20,8 @@ import pytest
 hfds = pytest.importorskip("datasets")
 PIL_Image = pytest.importorskip("PIL.Image")
 
-import autognothi_tpu.data.loader as dl  # noqa: E402
-from autognothi_tpu.data.loader import CvTransforms  # noqa: E402
+import autognothi.data.loader as dl  # noqa: E402
+from autognothi.data.loader import CvTransforms  # noqa: E402
 
 # texts long enough to pass the >=32-char quality filter, plus rejects
 GOOD = [
@@ -138,9 +138,9 @@ def test_imagenette_run_all_e2e(arrow_home, tmp_path):
     exp.mkdir()
     (exp / ".hparams.json").write_text(json.dumps(hparams, indent=2))
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.measure_all import measure_all
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.measure_all import measure_all
+    from autognothi.pipeline.train_all import train_all
 
     env = ExpEnv(exp)
     train_all(env)
@@ -153,7 +153,7 @@ def test_imagenette_run_all_e2e(arrow_home, tmp_path):
 
 def test_yelp_run_all_e2e(arrow_home, tmp_path):
     """Text track: mini vanilla-BERT trained over the yelp arrow branch."""
-    from autognothi_tpu.data.tokenizer import WordPieceTokenizer, build_vocab
+    from autognothi.data.tokenizer import WordPieceTokenizer, build_vocab
     from tests.test_bert_e2e import make_bert_hparams
 
     vocab = build_vocab(GOOD, max_size=200)
@@ -165,8 +165,8 @@ def test_yelp_run_all_e2e(arrow_home, tmp_path):
                           "test_size": 4, "test_seed": 11}
     (exp / ".hparams.json").write_text(json.dumps(hparams, indent=2))
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     env = ExpEnv(exp)
     train_all(env)

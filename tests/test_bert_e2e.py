@@ -53,8 +53,8 @@ def make_bert_hparams(vocab_size: int) -> dict:
 
 @pytest.fixture(scope="module")
 def bert_exp(tmp_path_factory) -> pathlib.Path:
-    import autognothi_tpu.data.loader as dl
-    from autognothi_tpu.data.tokenizer import WordPieceTokenizer, build_vocab
+    import autognothi.data.loader as dl
+    from autognothi.data.tokenizer import WordPieceTokenizer, build_vocab
 
     exp = tmp_path_factory.mktemp("bert") / "bert_mini"
     exp.mkdir()
@@ -71,9 +71,9 @@ def bert_exp(tmp_path_factory) -> pathlib.Path:
 
 
 def test_bert_train_all_and_explain(bert_exp: pathlib.Path):
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.run_text_explanation import run_text_explanation
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.run_text_explanation import run_text_explanation
+    from autognothi.pipeline.train_all import train_all
 
     env = ExpEnv(bert_exp)
     train_all(env)
@@ -91,9 +91,9 @@ def test_bert_train_all_and_explain(bert_exp: pathlib.Path):
 
 
 def test_bert_preview_text_shapley(bert_exp: pathlib.Path):
-    from autognothi_tpu.data.loader import load_nlp_samples
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.preview_text_shapley import preview_text_shapley
+    from autognothi.data.loader import load_nlp_samples
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.preview_text_shapley import preview_text_shapley
 
     # restrict to two samples for runtime
     loader = load_nlp_samples()
@@ -109,9 +109,9 @@ def test_bert_serve_texts_round_trip(bert_exp: pathlib.Path):
 
     import numpy as np
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.serve import serve_in_thread
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.serve import serve_in_thread
+    from autognothi.pipeline.train_all import train_all
 
     env = ExpEnv(bert_exp)
     train_all(env)  # no-op when the earlier tests already trained this dir
@@ -142,7 +142,7 @@ def test_bert_serve_texts_round_trip(bert_exp: pathlib.Path):
 
 
 def test_tokenizer_roundtrip(bert_exp: pathlib.Path):
-    from autognothi_tpu.data.tokenizer import WordPieceTokenizer
+    from autognothi.data.tokenizer import WordPieceTokenizer
 
     tok = WordPieceTokenizer.load(bert_exp / "tokenizer")
     ids, attn = tok.encode("the service was outstanding", 16)

@@ -10,7 +10,7 @@ import pytest
 
 sys.path.insert(0, "/root")
 
-from autognothi_tpu.models.bert import (
+from autognothi.models.bert import (
     VanillaBertConfig,
     bert_classifier_fwd,
     bert_explainer_fwd,
@@ -67,7 +67,7 @@ def inputs():
     return ids, mask, ttype
 
 
-def test_bert_classifier_matches_reference(inputs):
+def test_bert_classifier_matches_reference(inputs, torch_reference):
     import torch
     from reference.models.vanilla_bert import VanillaBertClassifier
 
@@ -86,7 +86,7 @@ def test_bert_classifier_matches_reference(inputs):
     np.testing.assert_allclose(np.asarray(ours), theirs, atol=2e-5, rtol=1e-4)
 
 
-def test_bert_explainer_matches_reference(inputs):
+def test_bert_explainer_matches_reference(inputs, torch_reference):
     import torch
     from reference.models.vanilla_bert import VanillaBertExplainer
 

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from autognothi_tpu.ops.cka import kernel_cka, linear_cka
+from autognothi.ops.cka import kernel_cka, linear_cka
 
 
 def _torch_reference_linear(x, y):

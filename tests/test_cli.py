@@ -63,21 +63,48 @@ def test_estimate_train_time_cmd(cli_exp: pathlib.Path):
     assert "estimated training time" in proc.stdout
 
 
+@pytest.mark.parametrize("device", ["gpu", "cuda:0", ""],
+                         ids=["gpu", "cuda0", "default"])
+def test_gpu_device_without_a_gpu_exits_nonzero(cli_exp, device):
+    """The CLI runs on the GPU unless the host is asked for: with JAX held
+    to the CPU backend (no CUDA plugin here), `--device gpu`/`cuda:N` and
+    the default (JAX_PLATFORMS unset) refuse instead of falling back."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    argv = ["train_all", str(cli_exp)] + (["--device", device] if device
+                                          else [])
+    proc = subprocess.run([sys.executable, str(REPO / "main.py"), *argv],
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+    assert proc.returncode != 0
+    assert "no GPU found" in proc.stderr
+    assert "NEW RUN" not in proc.stdout  # stopped before any stage ran
+
+
+def test_unknown_device_is_refused(cli_exp):
+    proc = _run("train_all", str(cli_exp), "--device", "rocm", check=False)
+    assert proc.returncode != 0
+    assert "unknown --device 'rocm'" in proc.stderr
+
+
 def test_module_entry_and_packaging_metadata():
-    # `python -m autognothi_tpu` is the installed-distribution entry
+    # `python -m autognothi` is the installed-distribution entry
     # (pyproject [project.scripts] routes `autognothi` to the same main)
     proc = subprocess.run(
-        [sys.executable, "-m", "autognothi_tpu", "--help"],
+        [sys.executable, "-m", "autognothi", "--help"],
         capture_output=True, text=True, timeout=120, check=True, cwd=REPO,
     )
     assert "run_all" in proc.stdout and "export_final" in proc.stdout
 
-    # stdlib only since 3.11; the package itself supports >=3.10
-    tomllib = pytest.importorskip("tomllib")
+    import tomllib
 
     meta = tomllib.loads((REPO / "pyproject.toml").read_text())
-    assert meta["project"]["scripts"]["autognothi"] == "autognothi_tpu.cli:main"
+    assert meta["project"]["scripts"]["autognothi"] == "autognothi.cli:main"
+    assert meta["project"]["requires-python"] == ">=3.12"
+    assert not any(d.startswith("pydantic")
+                   for d in meta["project"]["dependencies"])
     # the native cores ship as source (built on first use) and the offline
     # assets ride as package data — an sdist/wheel must include them
     assert "*.cpp" in meta["tool"]["setuptools"]["package-data"][
-        "autognothi_tpu.native"]
+        "autognothi.native"]

@@ -16,8 +16,8 @@ _DURATION = re.compile(r"done in \d+\.\d+s")
 
 def _train_logs(tmp_path: pathlib.Path, name: str, deferred: bool,
                 monkeypatch) -> list:
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     if deferred:
         monkeypatch.setenv("AUTOGNOTHI_DEFER_LOSS_FETCH", "1")

@@ -20,8 +20,8 @@ def trained_exp(tmp_path_factory):
     exp.mkdir()
     (exp / ".hparams.json").write_text(json.dumps(MINI_VIT_HPARAMS, indent=2))
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     env = ExpEnv(exp)
     train_all(env)
@@ -29,13 +29,13 @@ def trained_exp(tmp_path_factory):
 
 
 def test_export_round_trip_matches_live_model(trained_exp, tmp_path):
-    from autognothi_tpu.pipeline.export import export_final, load_exported
-    from autognothi_tpu.pipeline.resources import get_recipe, load_epoch_model
+    from autognothi.pipeline.export import export_final, load_exported
+    from autognothi.pipeline.resources import get_recipe, load_epoch_model
 
     env = trained_exp
     artifact = tmp_path / "final.jaxexp"
     # lower for the test's own backend only: the artifact must be callable
-    # here (cpu under conftest); the tpu+cpu default is covered below
+    # here (cpu under conftest); the cuda+cpu default is covered below
     meta = export_final(env, artifact, batch_size=2, platforms=["cpu"])
     assert artifact.stat().st_size == meta["bytes"] > 0
     assert meta["in_shape"][0] == 2
@@ -58,24 +58,25 @@ def test_export_round_trip_matches_live_model(trained_exp, tmp_path):
 
 
 def test_export_multi_platform_lowering(trained_exp, tmp_path):
-    """The default artifact embeds BOTH tpu and cpu lowerings."""
+    """The default artifact embeds BOTH cuda and cpu lowerings (the cuda
+    lowering needs no GPU at export time)."""
     from jax import export as jexport
 
-    from autognothi_tpu.pipeline.export import _unpack, export_final
+    from autognothi.pipeline.export import _unpack, export_final
 
     env = trained_exp
     artifact = tmp_path / "final_multi.jaxexp"
     meta = export_final(env, artifact, batch_size=2)
-    assert meta["platforms"] == ["tpu", "cpu"]
+    assert meta["platforms"] == ["cuda", "cpu"]
     program, params = _unpack(artifact.read_bytes())
     assert params  # weights ride as arguments, not constants (see module doc)
     exported = jexport.deserialize(program)
-    assert set(exported.platforms) == {"tpu", "cpu"}
+    assert set(exported.platforms) == {"cuda", "cpu"}
 
 
 def test_export_symbolic_batch(trained_exp, tmp_path):
     """batch_size=0 -> one lowering serves any batch (XLA path only)."""
-    from autognothi_tpu.pipeline.export import export_final, load_exported
+    from autognothi.pipeline.export import export_final, load_exported
 
     env = trained_exp
     artifact = tmp_path / "final_sym.jaxexp"
@@ -88,10 +89,6 @@ def test_export_symbolic_batch(trained_exp, tmp_path):
         assert np.asarray(probs).shape == (n, 3)
         assert np.asarray(attr).shape == (n, 3, 4)
 
-    with pytest.raises(SystemExit, match="static"):
-        export_final(env, tmp_path / "x.jaxexp", batch_size=0,
-                     platforms=["tpu"], kernels=True)
-
 
 def test_export_mesh_sharded_artifact(trained_exp, tmp_path):
     """--data-parallel 8: the artifact records nr_devices=8, binds to the
@@ -102,8 +99,8 @@ def test_export_mesh_sharded_artifact(trained_exp, tmp_path):
 
     import jax.numpy as jnp
 
-    from autognothi_tpu.pipeline.export import export_final, load_exported
-    from autognothi_tpu.pipeline.resources import get_recipe, load_epoch_model
+    from autognothi.pipeline.export import export_final, load_exported
+    from autognothi.pipeline.resources import get_recipe, load_epoch_model
 
     env = trained_exp
     artifact = tmp_path / "final_dp8.jaxexp"
@@ -141,83 +138,97 @@ def test_export_mesh_sharded_artifact(trained_exp, tmp_path):
                      platforms=["cpu"], data_parallel=8)
 
 
-def test_export_kernels_mesh_sharded_round_trip(trained_exp, tmp_path,
-                                                monkeypatch):
-    """--kernels x --data-parallel COMBINED (verdict r4 weak #5): the int8
-    fused-kernel serving path under shard_map, carried through jax.export
-    serialization — the artifact you'd actually ship to a v5e-8.  The
-    deserialized program must bit-match the live int8 serving path and
-    compile with zero cross-device collectives (the r3 GSPMD x pallas
-    replication regression class, now checked through serialization).
-    Kernels run via the Pallas interpreter on CPU — same dispatch and
-    partitioning code path as on hardware (tests/test_pallas_gspmd.py)."""
-    import re
+def test_export_traces_the_xla_attention(trained_exp, tmp_path,
+                                         monkeypatch):
+    """The artifact is portable StableHLO: even where `self_attention`
+    would pick the Pallas kernel (forced on here), the export traces the
+    XLA path, so the program holds no kernel custom call and lowers for
+    both cuda and cpu."""
+    from jax import export as jexport
 
-    import jax.numpy as jnp
+    from autognothi.ops import flash_attention
+    from autognothi.pipeline.export import _unpack, export_final
 
-    from autognothi_tpu.models.common import pallas_override, quant_override
-    from autognothi_tpu.parallel.mesh import (
-        make_mesh,
-        replicate_params,
-        shard_batch,
-        sharded_serving_fn,
-    )
-    from autognothi_tpu.pipeline.export import (
-        _pack,
-        build_final_export,
-        load_exported,
-    )
-    from autognothi_tpu.pipeline.resources import get_recipe, load_epoch_model
+    monkeypatch.setattr(flash_attention, "_default_platform", lambda: "gpu")
+    artifact = tmp_path / "final_portable.jaxexp"
+    export_final(trained_exp, artifact, batch_size=2)
+    exported = jexport.deserialize(_unpack(artifact.read_bytes())[0])
+    text = exported.mlir_module()
+    assert "masked_attention" not in text and "triton" not in text
 
-    monkeypatch.setenv("AUTOGNOTHI_PALLAS_INTERPRET", "1")
-    env = trained_exp
-    recipe, m_config = get_recipe(env.config)
-    _, params = load_epoch_model(env, recipe, "final")
-    misc = recipe.load_misc(env.model_path, m_config)
-    null = np.asarray(recipe.gen_null(m_config, misc))
-    host_params = {k: np.asarray(v) for k, v in params.items()}
 
-    exported, _ = build_final_export(
-        lambda p, xs: recipe.fw_final(m_config, p, xs), host_params, null,
-        batch_size=8, platforms=["cpu"], modes=("2", "int8"),
-        data_parallel=8)
-    assert exported.nr_devices == 8
-    artifact = tmp_path / "final_dp8_kernels.jaxexp"
-    artifact.write_bytes(_pack(exported.serialize(), host_params))
+_HIDE_INSTALLED_FLATBUFFERS = '''
+import importlib.machinery
+import sys
 
-    fw = load_exported(artifact)
-    xs = np.random.RandomState(3).randn(8, 3, 16, 16).astype(np.float32)
-    probs, attr = fw(xs)
 
-    # live int8 serving path: same modes, same shard_map wrapper, real mesh
-    mesh = make_mesh(8)
+class HideInstalled:
+    """`import flatbuffers` finds only the copy in autognothi/_vendor."""
 
-    def live(p, x):
-        with pallas_override("2"), quant_override("int8"):
-            return recipe.fw_final(m_config, p, x)
+    def find_spec(self, name, path=None, target=None):
+        if name != "flatbuffers":
+            return None
+        vendor = [p for p in sys.path if p.endswith("_vendor")]
+        if not vendor:
+            raise ModuleNotFoundError("No module named 'flatbuffers'")
+        return importlib.machinery.PathFinder.find_spec(name, vendor)
 
-    live_fw = sharded_serving_fn(live, mesh)
-    live_probs, live_attr = live_fw(replicate_params(host_params, mesh),
-                                    shard_batch(jnp.asarray(xs), mesh))
-    np.testing.assert_array_equal(np.asarray(probs), np.asarray(live_probs))
-    np.testing.assert_array_equal(np.asarray(attr), np.asarray(live_attr))
 
-    # the int8 path genuinely engaged: it must differ from the plain XLA
-    # trace (otherwise this round trip silently degenerated to the portable
-    # artifact and proves nothing about the kernel path)
-    import jax as _jax
+sys.meta_path.insert(0, HideInstalled())
+'''
 
-    xla_attr = _jax.jit(
-        lambda p, x: recipe.fw_final(m_config, p, x))(host_params, xs)[1]
-    assert not np.array_equal(np.asarray(attr), np.asarray(xla_attr))
+_EXPORT_AND_LOAD = '''
+import json
 
-    # zero collectives through the deserialized program: a replicated
-    # pallas_call would show up as all-gathers here
-    placed = fw.place_batch(jnp.asarray(xs))
-    txt = fw.pcall.lower(fw.params, placed).compile().as_text()
-    for op in ("all-gather", "all-reduce", "collective-permute",
-               "all-to-all"):
-        assert not re.findall(op, txt), op
+import numpy as np
+
+from autognothi.pipeline.env import ExpEnv
+from autognothi.pipeline.export import export_final, load_exported
+
+exp, old, new = sys.argv[1:4]
+export_final(ExpEnv(exp), new, batch_size=2, platforms=["cpu"])
+import flatbuffers
+
+xs = np.random.RandomState(0).randn(2, 3, 16, 16).astype(np.float32)
+print(json.dumps({
+    "flatbuffers": flatbuffers.__file__,
+    "old": [np.asarray(a).tolist() for a in load_exported(old)(xs)],
+    "new": [np.asarray(a).tolist() for a in load_exported(new)(xs)]}))
+'''
+
+
+def test_export_without_installed_flatbuffers(trained_exp, tmp_path):
+    """jax.export (de)serializes through `flatbuffers`, which JAX does not
+    require.  Where it is not installed, export_final and load_exported use
+    the bundled copy, which reads what the installed one wrote."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from autognothi.pipeline.export import export_final
+    from autognothi.pipeline.resources import get_recipe, load_epoch_model
+
+    old = tmp_path / "installed.jaxexp"
+    export_final(trained_exp, old, batch_size=2, platforms=["cpu"])
+    proc = subprocess.run(
+        [sys.executable, "-c", _HIDE_INSTALLED_FLATBUFFERS + _EXPORT_AND_LOAD,
+         str(trained_exp.model_path), str(old),
+         str(tmp_path / "vendored.jaxexp")],
+        cwd=pathlib.Path(__file__).resolve().parent.parent,
+        env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert f"_vendor{os.sep}flatbuffers" in got["flatbuffers"]
+
+    recipe, m_config = get_recipe(trained_exp.config)
+    _, params = load_epoch_model(trained_exp, recipe, "final")
+    xs = np.random.RandomState(0).randn(2, 3, 16, 16).astype(np.float32)
+    want = recipe.fw_final(m_config, params, xs)
+    for which in ("old", "new"):
+        for a, b in zip(got[which], want):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       atol=1e-5)
 
 
 def test_serve_sharded_artifact_end_to_end(trained_exp, tmp_path):
@@ -225,9 +236,9 @@ def test_serve_sharded_artifact_end_to_end(trained_exp, tmp_path):
     nr_devices=8 program, shards each slab, and answers like the live
     checkpoint path (closes verdict r3 weak #2 — artifacts served
     single-device only)."""
-    from autognothi_tpu.pipeline.export import export_final
-    from autognothi_tpu.pipeline.resources import get_recipe, load_epoch_model
-    from autognothi_tpu.pipeline.serve import ExplainService
+    from autognothi.pipeline.export import export_final
+    from autognothi.pipeline.resources import get_recipe, load_epoch_model
+    from autognothi.pipeline.serve import ExplainService
 
     env = trained_exp
     artifact = tmp_path / "final_dp8_serve.jaxexp"
@@ -257,9 +268,9 @@ def test_serve_artifact_mismatched_experiment_fails_closed(trained_exp,
     """Serving an artifact exported from a DIFFERENT experiment must refuse
     at startup — not report /healthz 200 while every /explain dies with an
     opaque aval error inside the dispatcher."""
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.export import export_final
-    from autognothi_tpu.pipeline.serve import ExplainService
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.export import export_final
+    from autognothi.pipeline.serve import ExplainService
 
     artifact = tmp_path / "final_16px.jaxexp"
     export_final(trained_exp, artifact, batch_size=2, platforms=["cpu"])
@@ -280,7 +291,7 @@ def test_sharded_artifact_fails_closed_on_fewer_devices(trained_exp,
     load (not crash opaquely at the first slab)."""
     import jax
 
-    from autognothi_tpu.pipeline.export import export_final, load_exported
+    from autognothi.pipeline.export import export_final, load_exported
 
     artifact = tmp_path / "final_dp8_small.jaxexp"
     export_final(trained_exp, artifact, batch_size=8, platforms=["cpu"],
@@ -292,7 +303,7 @@ def test_sharded_artifact_fails_closed_on_fewer_devices(trained_exp,
 
 
 def test_export_cli_verb(trained_exp, tmp_path):
-    from autognothi_tpu.cli import main
+    from autognothi.cli import main
 
     env = trained_exp
     out = tmp_path / "cli.jaxexp"
@@ -305,7 +316,7 @@ def test_export_cli_verb(trained_exp, tmp_path):
     main(["export_final", str(env.model_path), "--into", str(out8),
           "--batch-size", "8", "--platforms", "cpu", "--device", "cpu",
           "--data-parallel", "8"])
-    from autognothi_tpu.pipeline.export import load_exported
+    from autognothi.pipeline.export import load_exported
 
     assert load_exported(out8).nr_devices == 8
 
@@ -315,8 +326,8 @@ def test_export_kernel_shap_fails_closed(tmp_path):
     export_final must refuse before touching any checkpoint."""
     from tests.test_bert_e2e import make_bert_hparams
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.export import export_final
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.export import export_final
 
     hp = make_bert_hparams(64)
     hp["net"]["kind"] = "kernel_shap_bert"

@@ -10,7 +10,7 @@ inline as the oracle."""
 import jax.numpy as jnp
 import numpy as np
 
-from autognothi_tpu.pipeline.measure_faithfulness import _auc, perturbation_masks
+from autognothi.pipeline.measure_faithfulness import _auc, perturbation_masks
 
 
 def _reference_masks(attr: np.ndarray, n_players: int, steps: int, base: int):

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from autognothi_tpu.utils.flops import fn_flops
+from autognothi.utils.flops import fn_flops
 
 
 def test_plain_matmul():
@@ -51,7 +51,7 @@ def test_conv():
 def test_bert_classifier_flops_close_to_analytic():
     """The scanned BERT encoder must count every layer.  Analytic lower
     bound: 2 * matmul_params * seq (attention QK/PV terms add more)."""
-    from autognothi_tpu.models.bert import (
+    from autognothi.models.bert import (
         VanillaBertConfig,
         bert_classifier_fwd,
         init_bert_classifier,
@@ -108,22 +108,19 @@ def test_numpy_inputs_accepted():
 
 
 def test_pallas_call_counts_grid_steps():
-    """The fused block kernels trace ONE grid step; jaxpr_flops must scale
-    by the grid product or fn_flops under-reports by ~batch-size
-    (r2 review finding: measured exactly 1/B before the fix)."""
-    from autognothi_tpu.ops.mlp_block import mlp_block
+    """A Pallas kernel traces ONE grid step; jaxpr_flops must scale by the
+    grid product (and the in-kernel key-block loop by its trip count) or
+    fn_flops under-reports by ~batch x heads x query blocks.  At a shape
+    the masked-attention kernel does not pad, it counts what the XLA
+    reference counts."""
+    from autognothi.ops.flash_attention import masked_attention, reference
 
-    b, t, h, inter = 4, 8, 32, 64
-    x = jnp.zeros((b, t, h))
-    w1, b1 = jnp.zeros((inter, h)), jnp.zeros((inter,))
-    w2, b2 = jnp.zeros((h, inter)), jnp.zeros((h,))
+    n, t, h, d = 2, 128, 3, 16
+    q = jnp.zeros((n, t, h, d))
+    row = jnp.ones((n, t))
 
-    xla = fn_flops(
-        lambda r: mlp_block(r, w1, b1, w2, b2, use_pallas=False), x
-    )
+    xla = fn_flops(lambda a: reference(a, a, a, row, "mul"), q)
     pallas = fn_flops(
-        lambda r: mlp_block(r, w1, b1, w2, b2, use_pallas=True,
-                            interpret=True), x
-    )
-    assert xla == 2 * b * t * (2 * h * inter)  # two matmuls, whole batch
+        lambda a: masked_attention(a, a, a, row, "mul", interpret=True), q)
+    assert xla == 2 * (2 * n * h * t * t * d)  # QK^T and PV
     assert pallas == xla, (pallas, xla)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from autognothi_tpu.utils.functional import batched, iter_fixed_batches, pad_to
+from autognothi.utils.functional import batched, iter_fixed_batches, pad_to
 
 
 def test_pad_to_edge():

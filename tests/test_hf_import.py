@@ -11,7 +11,7 @@ import pytest
 def _bert_cfgs():
     from transformers import BertConfig
 
-    from autognothi_tpu.models.bert import VanillaBertConfig
+    from autognothi.models.bert import VanillaBertConfig
 
     hf = BertConfig(
         vocab_size=60, hidden_size=32, num_hidden_layers=2,
@@ -50,8 +50,8 @@ def test_bert_seqcls_import_matches_hf():
     import torch
     from transformers import BertForSequenceClassification
 
-    from autognothi_tpu.models.bert import bert_backbone
-    from autognothi_tpu.recipes.vanilla_bert import conv_pretrained_classifier
+    from autognothi.models.bert import bert_backbone
+    from autognothi.recipes.vanilla_bert import conv_pretrained_classifier
 
     hf_cfg, cfg = _bert_cfgs()
     torch.manual_seed(0)
@@ -84,7 +84,7 @@ def test_bert_bare_import_inits_classifier_head():
     import torch
     from transformers import BertModel
 
-    from autognothi_tpu.recipes.vanilla_bert import conv_pretrained_classifier
+    from autognothi.recipes.vanilla_bert import conv_pretrained_classifier
 
     hf_cfg, cfg = _bert_cfgs()
     torch.manual_seed(1)
@@ -107,8 +107,8 @@ def test_vit_import_matches_hf():
     import torch
     from transformers import ViTConfig, ViTForImageClassification
 
-    from autognothi_tpu.models.vit import VanillaViTConfig, vit_backbone
-    from autognothi_tpu.recipes.vanilla_vit import conv_pretrained_classifier
+    from autognothi.models.vit import VanillaViTConfig, vit_backbone
+    from autognothi.recipes.vanilla_vit import conv_pretrained_classifier
 
     hf_cfg = ViTConfig(
         hidden_size=32, num_hidden_layers=2, num_attention_heads=4,

@@ -3,7 +3,7 @@ linear in the features, the Shapley values are exactly w_i * (x_i - E[D_i])."""
 
 import numpy as np
 
-from autognothi_tpu.ops.kernel_shap import kernel_shap, kmeans_compress
+from autognothi.ops.kernel_shap import kernel_shap, kmeans_compress
 
 
 def test_linear_model_exact():
@@ -94,7 +94,7 @@ def test_sample_coalitions_odd_m_enumerates_each_size_once():
     """Odd player counts: the paired both-ends enumeration must stop at
     m//2 — one further (the old bound) re-enumerated already-covered sizes
     as exact duplicate rows with doubled WLS weight (biased phi)."""
-    from autognothi_tpu.ops.kernel_shap import _sample_coalitions
+    from autognothi.ops.kernel_shap import _sample_coalitions
 
     for m in (3, 5, 7):
         rows, w = _sample_coalitions(m, 10_000, np.random.RandomState(0))

@@ -6,7 +6,7 @@ import numpy as np
 def test_center_crop_pads_small_images():
     """torchvision CenterCrop zero-pads images smaller than the crop; a
     bare slice yields ragged batches that crash np.stack downstream."""
-    from autognothi_tpu.data.loader import CvTransforms, apply_cv_transforms
+    from autognothi.data.loader import CvTransforms, apply_cv_transforms
 
     tf = CvTransforms(center_crop={"height": 8, "width": 8})
     rng = np.random.RandomState(0)
@@ -19,7 +19,7 @@ def test_center_crop_pads_small_images():
 
 
 def test_center_crop_crops_large_images():
-    from autognothi_tpu.data.loader import CvTransforms, apply_cv_transforms
+    from autognothi.data.loader import CvTransforms, apply_cv_transforms
 
     tf = CvTransforms(center_crop={"height": 4, "width": 4})
     rng = np.random.RandomState(1)

@@ -6,7 +6,7 @@ import numpy as np
 
 
 def test_ltt_vit_coalition_fast_path():
-    from autognothi_tpu.models.ltt_vit import (
+    from autognothi.models.ltt_vit import (
         LttViTConfig,
         init_ltt_vit_surrogate,
         ltt_vit_surrogate_coalitions_fwd,
@@ -48,7 +48,7 @@ def test_ltt_vit_coalition_fast_path():
 
 
 def test_ltt_bert_coalition_fast_path():
-    from autognothi_tpu.models.ltt_bert import (
+    from autognothi.models.ltt_bert import (
         LttBertConfig,
         init_ltt_bert_surrogate,
         ltt_bert_surrogate_coalitions_fwd,

@@ -30,8 +30,8 @@ def _ltt_vit_hparams() -> dict:
 
 
 def test_ltt_vit_end_to_end(tmp_path: pathlib.Path):
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     exp = tmp_path / "ltt_vit"
     exp.mkdir()
@@ -57,10 +57,10 @@ def test_ltt_vit_end_to_end(tmp_path: pathlib.Path):
 
 
 def test_ltt_bert_end_to_end(tmp_path: pathlib.Path):
-    import autognothi_tpu.data.loader as dl
-    from autognothi_tpu.data.tokenizer import WordPieceTokenizer, build_vocab
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    import autognothi.data.loader as dl
+    from autognothi.data.tokenizer import WordPieceTokenizer, build_vocab
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     hp = make_bert_hparams(0)
     hp["net"]["kind"] = "ltt_bert"
@@ -94,7 +94,7 @@ def test_ltt_active_layers_gates_ladder(tmp_path: pathlib.Path):
     import jax.numpy as jnp
     import numpy as np
 
-    from autognothi_tpu.models.ltt_vit import (
+    from autognothi.models.ltt_vit import (
         LttViTConfig,
         init_ltt_vit_surrogate,
         ltt_vit_backbone,

@@ -15,16 +15,16 @@ def trained_exp(tmp_path_factory) -> pathlib.Path:
     exp.mkdir()
     (exp / ".hparams.json").write_text(json.dumps(MINI_VIT_HPARAMS, indent=2))
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     train_all(ExpEnv(exp))
     return exp
 
 
 def test_measure_all_produces_reports(trained_exp: pathlib.Path):
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.measure_all import measure_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.measure_all import measure_all
 
     env = ExpEnv(trained_exp)
     measure_all(env)
@@ -72,8 +72,8 @@ def test_measure_all_produces_reports(trained_exp: pathlib.Path):
 
 
 def test_estimate_train_time(trained_exp: pathlib.Path):
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.estimate_train_time import estimate_train_time
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.estimate_train_time import estimate_train_time
 
     env = ExpEnv(trained_exp)
     estimate_train_time(env)

@@ -1,7 +1,7 @@
 """Trained-weight migration E2E: the ACTUAL torch reference pipeline trains
 a mini vanilla-BERT experiment (real `train_all`, reference
 scripts/train_all.py:16-65), every stage checkpoint is imported into
-autognothi_tpu, and the deterministic measurement reports
+autognothi, and the deterministic measurement reports
 (faithfulness curves/AUC, cls_acc, masked-accuracy endpoints) are asserted
 to match across frameworks on the identical dataset + tokenizer.
 

@@ -6,7 +6,7 @@ import ctypes
 import numpy as np
 import pytest
 
-import autognothi_tpu.data.loader as dl
+import autognothi.data.loader as dl
 
 
 def _numpy_resize(img: np.ndarray, height: int, width: int) -> np.ndarray:

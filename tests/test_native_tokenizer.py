@@ -7,8 +7,8 @@ import pathlib
 import numpy as np
 import pytest
 
-import autognothi_tpu.data.loader as dl
-from autognothi_tpu.data.tokenizer import (
+import autognothi.data.loader as dl
+from autognothi.data.tokenizer import (
     WordPieceTokenizer,
     build_vocab,
     encode_batch,

@@ -1,7 +1,7 @@
 """Pipeline parallelism (parallel/pipeline.py): GPipe schedule over the
 ("data", "pipe") mesh.
 
-The reference is single-device; pp is new TPU-native capability completing
+The reference is single-device; pp is new capability completing
 the parallelism set (dp/tp: parallel/mesh.py, sp: the coalition axis,
 ep: n/a — no MoE architectures).  Pinned here:
 
@@ -17,20 +17,22 @@ ep: n/a — no MoE architectures).  Pinned here:
 - fail-closed: layer counts / batches that do not divide the mesh raise.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 
-from autognothi_tpu.models.common import stack_layer_params, subdict
-from autognothi_tpu.models.vit import (
+from autognothi.models.common import stack_layer_params, subdict
+from autognothi.models.vit import (
     VanillaViTConfig,
     init_vit_classifier,
     vit_embeddings,
     vit_encoder,
 )
-from autognothi_tpu.parallel.pipeline import (
+from autognothi.parallel.pipeline import (
     make_pipe_mesh,
     make_pp_classifier_train_step,
     pipelined_bert_encoder,
@@ -46,7 +48,7 @@ def _no_persistent_cache():
     """Compile fresh: the XLA:CPU thunk runtime can SIGABRT executing a
     CACHE-LOADED executable that mixes all-reduces with collective-permutes
     (measured on the pp surrogate trainer step — see test_train_pp.py's
-    identical fixture and BASELINE.md r5).  This module's train-step tests
+    identical fixture).  This module's train-step tests
     compile exactly that program shape, so it opts out of the suite-wide
     persistent cache too."""
     old = jax.config.jax_enable_compilation_cache
@@ -184,7 +186,7 @@ def test_pp_classifier_train_step_stage_sharded(vit_setup):
 
 def test_pp_fwd_parity_vs_plain_classifier(vit_setup):
     cfg, p, _, pixels, _, _ = vit_setup
-    from autognothi_tpu.models.vit import vit_classifier_fwd
+    from autognothi.models.vit import vit_classifier_fwd
 
     mesh = make_pipe_mesh(8, pipe=4)
     rest, stacked = split_encoder_params(p, cfg.num_hidden_layers, mesh)
@@ -200,8 +202,8 @@ def test_pp_vit_explainer_fwd_parity(vit_setup):
     """pp_vit_explainer_fwd vs the sequential vit_explainer_fwd (the hot
     training tower): attributions must match with the backbone encoder
     stage-sharded and the explainer_attn + MLP head on `rest`."""
-    from autognothi_tpu.models.vit import init_vit_explainer, vit_explainer_fwd
-    from autognothi_tpu.parallel.pipeline import pp_vit_explainer_fwd
+    from autognothi.models.vit import init_vit_explainer, vit_explainer_fwd
+    from autognothi.parallel.pipeline import pp_vit_explainer_fwd
 
     cfg, _, _, pixels, _, _ = vit_setup
     p = init_vit_explainer(jax.random.PRNGKey(8), cfg)
@@ -223,11 +225,11 @@ def test_pp_vit_explainer_fwd_parity(vit_setup):
 def test_pp_bert_explainer_fwd_parity():
     """Text-track pp explainer forward vs the sequential bert_explainer_fwd
     (no final LN — bert_backbone ends at the encoder)."""
-    from autognothi_tpu.models.bert import (
+    from autognothi.models.bert import (
         bert_explainer_fwd,
         init_bert_explainer,
     )
-    from autognothi_tpu.parallel.pipeline import pp_bert_explainer_fwd
+    from autognothi.parallel.pipeline import pp_bert_explainer_fwd
 
     cfg = _mini_bert_cfg()
     p = init_bert_explainer(jax.random.PRNGKey(10), cfg)
@@ -272,7 +274,7 @@ def test_pp_collective_shape(vit_setup):
 
 
 def _mini_bert_cfg():
-    from autognothi_tpu.models.bert import VanillaBertConfig
+    from autognothi.models.bert import VanillaBertConfig
 
     return VanillaBertConfig(
         attention_probs_dropout_prob=0.0,
@@ -294,12 +296,12 @@ def _mini_bert_cfg():
 
 
 def test_pp_bert_encoder_matches_scan():
-    from autognothi_tpu.models.bert import (
+    from autognothi.models.bert import (
         bert_embeddings,
         bert_encoder,
         init_bert_classifier,
     )
-    from autognothi_tpu.models.common import additive_mask_bias
+    from autognothi.models.common import additive_mask_bias
 
     cfg = _mini_bert_cfg()
     p = subdict(init_bert_classifier(jax.random.PRNGKey(1), cfg), "bert.")
@@ -320,11 +322,11 @@ def test_pp_bert_encoder_matches_scan():
 def test_pp_bert_classifier_fwd_parity():
     """Text-track pp classifier (pp_bert_classifier_fwd) vs the sequential
     bert_classifier_fwd, with stage-sharded weights."""
-    from autognothi_tpu.models.bert import (
+    from autognothi.models.bert import (
         bert_classifier_fwd,
         init_bert_classifier,
     )
-    from autognothi_tpu.parallel.pipeline import pp_bert_classifier_fwd
+    from autognothi.parallel.pipeline import pp_bert_classifier_fwd
 
     cfg = _mini_bert_cfg()
     p = init_bert_classifier(jax.random.PRNGKey(4), cfg)
@@ -351,7 +353,7 @@ def test_pp_dropout_iid_across_microbatches_and_ranks():
     (data=2, pipe=2) x microbatches=2 layout, rows landing in different
     microbatches (0 vs 2) and different data ranks (0 vs 4) must differ,
     and re-running with the same key must reproduce exactly."""
-    cfg = _mini_cfg().model_copy(update={"hidden_dropout_prob": 0.3})
+    cfg = dataclasses.replace(_mini_cfg(), hidden_dropout_prob=0.3)
     p = init_vit_classifier(jax.random.PRNGKey(0), cfg)
     vp = subdict(p, "vit.")
     rs = np.random.RandomState(7)
@@ -375,11 +377,15 @@ def test_pp_dropout_iid_across_microbatches_and_ranks():
 
 def test_pp_train_step_pins_pallas_and_quant(vit_setup, monkeypatch):
     """The pp train step's differentiated forward follows the trainer
-    discipline (parallel/train_step.py): pallas and quant pinned off at
-    trace time.  With AUTOGNOTHI_PALLAS=2 + INTERPRET=1 exported (the CI
-    kernel-dispatch knob) an unpinned loss would trace the interpret-mode
-    fused kernels, whose in-kernel erf differs from XLA's gelu — exact
-    equality with the default-env loss proves the pin."""
+    discipline (parallel/train_step.py): attention pinned to XLA at trace
+    time under the multi-device mesh.  With the platform reported as a GPU
+    and the kernel routed to the Pallas interpreter, an unpinned loss would
+    trace the kernel, whose online softmax sums in another order — exact
+    equality with the default loss proves the pin."""
+    import functools
+
+    from autognothi.ops import flash_attention
+
     cfg, p, _, pixels, _, _ = vit_setup
     mesh = make_pipe_mesh(8, pipe=2)
     rest, stacked = split_encoder_params(p, cfg.num_hidden_layers, mesh)
@@ -391,9 +397,10 @@ def test_pp_train_step_pins_pallas_and_quant(vit_setup, monkeypatch):
 
     _, _, _, ref = step(rest, stacked, tx.init((rest, stacked)),
                         pixels, ones, labels)
-    monkeypatch.setenv("AUTOGNOTHI_PALLAS", "2")
-    monkeypatch.setenv("AUTOGNOTHI_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("AUTOGNOTHI_INT8", "1")
+    monkeypatch.setattr(flash_attention, "_default_platform", lambda: "gpu")
+    monkeypatch.setattr(
+        flash_attention, "masked_attention",
+        functools.partial(flash_attention.masked_attention, interpret=True))
     step2 = make_pp_classifier_train_step(cfg, tx, mesh, microbatches=2)
     _, _, _, pinned = step2(rest, stacked, tx.init((rest, stacked)),
                             pixels, ones, labels)
@@ -406,8 +413,8 @@ def test_pp_per_rank_memory_scales_1_over_p():
     (weights AND Adam moments) are exactly the 1/P slab at P in {2, 4}
     (12 layers), while `rest` stays replicated (constant per rank).
     Full sweep incl. P=3 + the microbatch temp-size table:
-    playground/bench_pp_memory.py (recorded in BASELINE.md)."""
-    from autognothi_tpu.parallel.pipeline import (
+    playground/bench_pp_memory.py."""
+    from autognothi.parallel.pipeline import (
         make_pp_classifier_train_step,
     )
 
@@ -492,7 +499,7 @@ def test_pp_tp_vit_classifier_fwd_parity(vit_setup):
     forward with model-sharded stages must match the sequential reference
     (tolerance admits the TP all-reduce's float reassociation)."""
     cfg, p, _, pixels, _, _ = vit_setup
-    from autognothi_tpu.models.vit import vit_classifier_fwd
+    from autognothi.models.vit import vit_classifier_fwd
 
     mesh = make_pipe_mesh(8, pipe=2, model=2)
     rest, stacked = split_encoder_params(p, cfg.num_hidden_layers, mesh)
@@ -508,8 +515,8 @@ def test_pp_tp_vit_explainer_fwd_parity(vit_setup):
     """The hot tower's forward under dp x pp x tp: attributions match the
     sequential explainer (backbone stage-sharded AND model-sharded; the
     explainer_attn + head on `rest` TP via GSPMD)."""
-    from autognothi_tpu.models.vit import init_vit_explainer, vit_explainer_fwd
-    from autognothi_tpu.parallel.pipeline import pp_vit_explainer_fwd
+    from autognothi.models.vit import init_vit_explainer, vit_explainer_fwd
+    from autognothi.parallel.pipeline import pp_vit_explainer_fwd
 
     cfg, _, _, pixels, _, _ = vit_setup
     p = init_vit_explainer(jax.random.PRNGKey(8), cfg)
@@ -578,9 +585,8 @@ def test_pp_tp_fail_closed():
         make_pipe_mesh(8, pipe=2, model=3)
     # hidden dims that do not divide the model axis fail closed at split
     # time (a silent GSPMD pad would corrupt the Megatron layout)
-    cfg = _mini_cfg().model_copy(update={"hidden_size": 36,
-                                         "intermediate_size": 72,
-                                         "num_attention_heads": 4})
+    cfg = dataclasses.replace(_mini_cfg(), hidden_size=36,
+                              intermediate_size=72, num_attention_heads=4)
     p = init_vit_classifier(jax.random.PRNGKey(0), cfg)
     mesh = make_pipe_mesh(8, pipe=1, model=8)
     with pytest.raises(ValueError, match="cannot shard"):
@@ -590,11 +596,11 @@ def test_pp_tp_fail_closed():
 def test_pp_tp_bert_classifier_fwd_parity():
     """Text track under dp x pp x tp: pp_bert_classifier_fwd with
     model-sharded stage bricks matches the sequential bert_classifier_fwd."""
-    from autognothi_tpu.models.bert import (
+    from autognothi.models.bert import (
         bert_classifier_fwd,
         init_bert_classifier,
     )
-    from autognothi_tpu.parallel.pipeline import pp_bert_classifier_fwd
+    from autognothi.parallel.pipeline import pp_bert_classifier_fwd
 
     cfg = _mini_bert_cfg()
     p = init_bert_classifier(jax.random.PRNGKey(4), cfg)

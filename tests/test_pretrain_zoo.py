@@ -18,7 +18,7 @@ from tests.test_train_all_e2e import MINI_VIT_HPARAMS
 @pytest.fixture()
 def tmp_store(tmp_path, monkeypatch):
     # the zoo store lives inside the package; tests must not write there
-    import autognothi_tpu.zoo.loader as zoo
+    import autognothi.zoo.loader as zoo
 
     store = tmp_path / "store"
     monkeypatch.setattr(zoo, "_STORE", store)
@@ -26,10 +26,10 @@ def tmp_store(tmp_path, monkeypatch):
 
 
 def test_pretrain_export_and_reuse(tmp_path: pathlib.Path, tmp_store):
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.pretrain_classifier import pretrain_classifier
-    from autognothi_tpu.pipeline.resources import load_epoch_model, get_recipe
-    from autognothi_tpu.pipeline.train_all import conv_pretrained_classifier
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.pretrain_classifier import pretrain_classifier
+    from autognothi.pipeline.resources import load_epoch_model, get_recipe
+    from autognothi.pipeline.train_all import conv_pretrained_classifier
 
     ft_exp = tmp_path / "ft_vit_tiny_imagenette"
     ft_exp.mkdir()
@@ -61,7 +61,7 @@ def test_pretrain_export_and_reuse(tmp_path: pathlib.Path, tmp_store):
 
 
 def test_unknown_ft_base_fails_closed(tmp_store):
-    from autognothi_tpu.zoo.loader import load_params
+    from autognothi.zoo.loader import load_params
 
     with pytest.raises(FileNotFoundError, match="pretrain_classifier"):
         load_params("ft_nonexistent", num_labels=2)

@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from autognothi_tpu.ops.shapley import (
+from autognothi.ops.shapley import (
     loss_logits_kl_divergence,
     loss_shapley,
 )
-from autognothi_tpu.pipeline.training import (
+from autognothi.pipeline.training import (
     cross_entropy_on_probs,
     make_optimizer,
     make_train_step,
@@ -114,11 +114,11 @@ def test_gradients_equal_through_optimizer_step():
 def test_explainer_step_compiles_once_across_ragged_batches():
     """The fused explainer step sees one shape for a [4, 4, 2]-sized epoch
     (2 padded to 4) — one trace, not two."""
-    from autognothi_tpu.models.vit import VanillaViTConfig, init_vit_classifier, \
+    from autognothi.models.vit import VanillaViTConfig, init_vit_classifier, \
         init_vit_explainer
-    from autognothi_tpu.parallel.train_step import make_explainer_train_step
-    from autognothi_tpu.pipeline.training import make_optimizer, pad_batch
-    from autognothi_tpu.recipes.vanilla_vit import fw_surrogate, vanilla_vit_recipe
+    from autognothi.parallel.train_step import make_explainer_train_step
+    from autognothi.pipeline.training import make_optimizer, pad_batch
+    from autognothi.recipes.vanilla_vit import fw_surrogate, vanilla_vit_recipe
 
     cfg = VanillaViTConfig(
         attention_probs_dropout_prob=0.0, explainer_attn_num_layers=1,

@@ -10,8 +10,8 @@ from tests.test_train_all_e2e import MINI_VIT_HPARAMS
 def test_training_resumes_from_latest_epoch(tmp_path: pathlib.Path):
     import copy
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     hp = copy.deepcopy(MINI_VIT_HPARAMS)
     hp["train_explainer"]["epochs"] = 3
@@ -41,8 +41,8 @@ def test_training_resumes_from_latest_epoch(tmp_path: pathlib.Path):
 def test_ckpt_retention_follows_cadence(tmp_path: pathlib.Path):
     import copy
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     hp = copy.deepcopy(MINI_VIT_HPARAMS)
     hp["train_explainer"]["epochs"] = 4
@@ -64,7 +64,7 @@ def test_orbax_backend_roundtrip(tmp_path, monkeypatch):
     """Orbax directories interchange with npz files under the same paths."""
     import numpy as np
 
-    from autognothi_tpu.pipeline.resources import (
+    from autognothi.pipeline.resources import (
         latest_epoch,
         load_params_file,
         save_params,
@@ -99,8 +99,8 @@ def test_orbax_retention_deletes_directories(tmp_path, monkeypatch):
     """Cadence retention unlinks Orbax directory payloads like npz files."""
     import numpy as np
 
-    from autognothi_tpu.pipeline.config import Config_Train
-    from autognothi_tpu.pipeline.resources import (
+    from autognothi.pipeline.config import Config_Train
+    from autognothi.pipeline.resources import (
         get_epoch_ckpts,
         save_epoch_ckpt,
     )

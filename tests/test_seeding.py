@@ -2,7 +2,7 @@ import random
 
 import numpy as np
 
-from autognothi_tpu.utils.seeding import derive_seed, iterative_key, set_iterative_seed
+from autognothi.utils.seeding import derive_seed, iterative_key, set_iterative_seed
 
 
 def test_keyed_seed_reproducibility():

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from autognothi_tpu.ops.shapley import (
+from autognothi.ops.shapley import (
     loss_logits_kl_divergence,
     loss_shapley,
     mask_purely_uniform,

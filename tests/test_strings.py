@@ -1,4 +1,4 @@
-from autognothi_tpu.utils.strings import (
+from autognothi.utils.strings import (
     flatten_dict,
     pattern_replace,
     pattern_replace_single,

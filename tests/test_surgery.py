@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from autognothi_tpu.utils.surgery import MergeError, New, merge_param_dicts
+from autognothi.utils.surgery import MergeError, New, merge_param_dicts
 
 
 def test_merge_semantics_fanout_keep_remove_new():

@@ -14,7 +14,8 @@ sys.path.insert(0, "/root")
 from tests.test_train_all_e2e import MINI_VIT_HPARAMS
 
 
-def test_torch_saved_reference_ckpts_load_and_measure(tmp_path: pathlib.Path):
+def test_torch_saved_reference_ckpts_load_and_measure(tmp_path: pathlib.Path,
+                                                     torch_reference):
     import torch
     from reference.models.vanilla_vit import (
         VanillaViTClassifier,
@@ -24,9 +25,9 @@ def test_torch_saved_reference_ckpts_load_and_measure(tmp_path: pathlib.Path):
         VanillaViTSurrogate,
     )
 
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.measure_accuracy import measure_accuracy
-    from autognothi_tpu.pipeline.resources import (
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.measure_accuracy import measure_accuracy
+    from autognothi.pipeline.resources import (
         get_recipe,
         load_epoch_model,
         load_params_file,

@@ -69,8 +69,8 @@ def vit_exp(tmp_path: pathlib.Path) -> pathlib.Path:
 
 
 def test_train_all_end_to_end(vit_exp: pathlib.Path):
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     env = ExpEnv(vit_exp)
     train_all(env)
@@ -87,7 +87,7 @@ def test_train_all_end_to_end(vit_exp: pathlib.Path):
     # the final model emits (probs, per-player attributions) in one pass
     import jax.numpy as jnp
 
-    from autognothi_tpu.pipeline.resources import get_recipe, load_epoch_model
+    from autognothi.pipeline.resources import get_recipe, load_epoch_model
 
     recipe, m_config = get_recipe(env.config)
     _, final_params = load_epoch_model(env, recipe, "final")
@@ -114,8 +114,8 @@ def test_train_all_end_to_end(vit_exp: pathlib.Path):
 
 def test_explainer_training_reduces_loss(vit_exp: pathlib.Path):
     """The Shapley regression loss must drop over epochs on the train set."""
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     # stretch training for signal
     cfg = json.loads((vit_exp / ".hparams.json").read_text())

@@ -24,8 +24,8 @@ def _vit_variant(kind: str) -> dict:
 
 
 def test_froyo_vit_end_to_end(tmp_path):
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     exp = _write_exp(tmp_path / "froyo", _vit_variant("froyo_vit"))
     env = ExpEnv(exp)
@@ -44,11 +44,11 @@ def test_froyo_vit_end_to_end(tmp_path):
 
 
 def test_duo_vit_end_to_end_and_dual_task(tmp_path):
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.measure_dual_task_similarity import (
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.measure_dual_task_similarity import (
         measure_dual_task_similarity,
     )
-    from autognothi_tpu.pipeline.train_all import train_all
+    from autognothi.pipeline.train_all import train_all
 
     exp = _write_exp(tmp_path / "duo", _vit_variant("duo_vanilla_vit"))
     env = ExpEnv(exp)
@@ -68,10 +68,10 @@ def test_bert_variant_end_to_end(tmp_path, kind):
     import json as _json
     import pathlib as _pathlib
 
-    import autognothi_tpu.data.loader as dl
-    from autognothi_tpu.data.tokenizer import WordPieceTokenizer, build_vocab
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.train_all import train_all
+    import autognothi.data.loader as dl
+    from autognothi.data.tokenizer import WordPieceTokenizer, build_vocab
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.train_all import train_all
 
     hp = make_bert_hparams(0)
     hp["net"]["kind"] = kind
@@ -110,11 +110,11 @@ def test_bert_variant_end_to_end(tmp_path, kind):
 def test_kernel_shap_bert_end_to_end(tmp_path):
     import numpy as np
 
-    from autognothi_tpu.data.tokenizer import WordPieceTokenizer, build_vocab
-    from autognothi_tpu.pipeline.env import ExpEnv
-    from autognothi_tpu.pipeline.resources import get_recipe, load_epoch_model
-    from autognothi_tpu.pipeline.train_all import train_all
-    import autognothi_tpu.data.loader as dl
+    from autognothi.data.tokenizer import WordPieceTokenizer, build_vocab
+    from autognothi.pipeline.env import ExpEnv
+    from autognothi.pipeline.resources import get_recipe, load_epoch_model
+    from autognothi.pipeline.train_all import train_all
+    import autognothi.data.loader as dl
 
     hp = make_bert_hparams(0)  # vocab patched below
     hp["net"]["kind"] = "kernel_shap_bert"
@@ -160,7 +160,7 @@ def test_kernel_shap_bert_end_to_end(tmp_path):
     # raises TracerArrayConversionError; the reference allows faithfulness
     # for KernelSHAP — recipes/kernel_shap_bert.py:77 upstream)
     assert recipe.fw_final_host
-    from autognothi_tpu.pipeline.measure_faithfulness import (
+    from autognothi.pipeline.measure_faithfulness import (
         measure_faithfulness,
     )
 

@@ -10,7 +10,7 @@ import pytest
 
 sys.path.insert(0, "/root")  # namespace-import the read-only reference
 
-from autognothi_tpu.models.vit import (
+from autognothi.models.vit import (
     VanillaViTConfig,
     init_vit_classifier,
     init_vit_explainer,
@@ -67,7 +67,7 @@ def rng_inputs():
     return pixels, mask
 
 
-def test_classifier_matches_reference(rng_inputs):
+def test_classifier_matches_reference(rng_inputs, torch_reference):
     import torch
     from reference.models.vanilla_vit import VanillaViTClassifier
 
@@ -84,7 +84,7 @@ def test_classifier_matches_reference(rng_inputs):
     np.testing.assert_allclose(np.asarray(ours), theirs, atol=2e-5, rtol=1e-4)
 
 
-def test_explainer_matches_reference(rng_inputs):
+def test_explainer_matches_reference(rng_inputs, torch_reference):
     import torch
     from reference.models.vanilla_vit import VanillaViTExplainer
 

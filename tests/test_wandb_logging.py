@@ -51,7 +51,7 @@ def _exp_with_logger(tmp_path: pathlib.Path) -> pathlib.Path:
 
 def test_wandb_lifecycle_and_metrics(tmp_path, monkeypatch):
     mod, calls = _install_fake_wandb(monkeypatch)
-    from autognothi_tpu.pipeline.env import ExpEnv
+    from autognothi.pipeline.env import ExpEnv
 
     exp = _exp_with_logger(tmp_path)
     env = ExpEnv(exp).fork(lambda c: c.logger_explainer)
@@ -89,7 +89,7 @@ def test_wandb_lifecycle_and_metrics(tmp_path, monkeypatch):
 
 def test_wandb_disabled_falls_back_to_console(tmp_path, monkeypatch):
     _, calls = _install_fake_wandb(monkeypatch)
-    from autognothi_tpu.pipeline.env import ExpEnv
+    from autognothi.pipeline.env import ExpEnv
 
     exp = tmp_path / "console_exp"
     exp.mkdir()
